@@ -18,6 +18,9 @@ def pytest_configure(config):
         "markers",
         "slow: heavyweight system/arch-zoo test; deselected from plain "
         "runs, select with -m slow")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; skips without one, select with -m gpu")
 
 
 def pytest_collection_modifyitems(config, items):
